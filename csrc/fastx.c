@@ -1,6 +1,6 @@
 /* Native FASTA/FASTQ(.gz) batch reader + 2-bit encoder.
  *
- * TPU-native equivalent of the reference's kseq streaming layer
+ * Batched equivalent of the reference's kseq streaming layer
  * (src/lib/utils.h kseq macros): the host runtime's job here is to turn a
  * (possibly gzipped) FASTX stream into padded 2-bit batches the device
  * consumes, as fast as the wire allows. Exposed via ctypes (no pybind11

@@ -519,7 +519,7 @@ int64_t rescore_finish(const int64_t *params, int64_t *chains_io,
                          r[8], r[9], r[10], r[11], 0, 0};
     }
     /* mode 1 (params[17]): post_rescore_finish + detect_primary only —
-       the device engine computes sum_score on the TPU and needs just
+       the device engine computes sum_score on the device and needs just
        the merge/filter/primary host finish */
     int post_only = params[17] == 1;
     if (post_only) goto post;

@@ -1,9 +1,9 @@
-"""desamba_tpu — TPU-native metagenomic long-read classifier.
+"""desamba_tpu — metagenomic long-read classification on an accelerator.
 
 A from-scratch re-implementation of the capabilities of hitbc/deSAMBA
-(sparse-approximate-match pseudo-alignment + taxonomy analysis), designed
-TPU-first: HBM-resident gather-table index, batched JAX/Pallas classify
-kernels, shard_map scale-out. See DESIGN.md / SURVEY.md.
+(sparse-approximate-match pseudo-alignment + taxonomy analysis): a
+device-resident gather-table index, batched JAX classify kernels and
+shard_map scale-out over several GPUs. See DESIGN.md / SURVEY.md.
 """
 
 __version__ = "0.1.0"

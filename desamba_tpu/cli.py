@@ -1,8 +1,8 @@
 """Command-line interface: index / classify / analysis.
 
 Mirrors the reference binary's subcommands (src/main.c:35-53) with a native
-index format; `classify --engine` selects the host oracle (gold) or the
-TPU batch engine (device).
+index format; `classify --engine` selects the host engine (gold) or the
+batched device engine (device).
 """
 from __future__ import annotations
 
@@ -31,7 +31,6 @@ def cmd_classify(args):
     from .engine.gold.classify import ClassifyEngine, Options
     from .index.store import load_index
     from .io.fastx import read_fastx_fast as read_fastx
-    from .io.sam import format_result
 
     t0 = time.time()
     idx = load_index(args.index_dir)
@@ -41,21 +40,11 @@ def cmd_classify(args):
     out = sys.stdout if args.o is None else open(args.o, "w")
     n = 0
     t1 = time.time()
-    engine = args.engine
-    if engine == "auto":
-        # the native host engine currently leads on every backend
-        # (~5,000 vs 233 reads/s demo, BASELINE.md round-2 tables);
-        # flips to the device engine when it takes the lead
-        engine = "gold"
-    if engine == "device":
+    if args.engine == "device":
         from .engine.device.classifier import DeviceClassifier
 
         eng = DeviceClassifier(idx, opts)
-        for path in args.reads:
-            print(f"Processing file: [{path}].", file=sys.stderr)
-            for res in eng.classify_file(path):
-                out.write(format_result(res, idx.ref_name, opts))
-                n += 1
+        n = classify_device(eng, args.reads, out)
     else:
         import queue
         import threading
@@ -110,6 +99,27 @@ def cmd_classify(args):
     if args.o is not None:
         out.close()
     _report_peak_rss()
+
+
+def classify_device(eng, paths, out):
+    """`classify --engine device` with a DeviceClassifier: writes the
+    records of every read in paths to out, in input order; returns the
+    read count. eng.fallback_stats() counts the reads the host oracle
+    finished."""
+    import jax
+
+    from .io.sam import format_result
+
+    dev = jax.devices()[0]
+    print(f"device engine on {dev.platform} ({dev.device_kind})",
+          file=sys.stderr)
+    n = 0
+    for path in paths:
+        print(f"Processing file: [{path}].", file=sys.stderr)
+        for res in eng.classify_file(path):
+            out.write(format_result(res, eng.idx.ref_name, eng.opts))
+            n += 1
+    return n
 
 
 def _report_peak_rss():
@@ -211,8 +221,9 @@ def main(argv=None):
                     choices=["SAM", "SAM_FULL", "DES", "DES_FULL"])
     pc.add_argument("--engine", default="auto",
                     choices=["auto", "gold", "device"],
-                    help="auto = device engine when an accelerator backend "
-                         "is present, else the host (gold) engine")
+                    help="auto = gold, the native host engine; device = "
+                         "the batched device engine on the accelerator JAX "
+                         "finds")
     pc.set_defaults(fn=cmd_classify)
 
     pa = sub.add_parser("analysis", help="taxonomy / accuracy analysis")

@@ -1,6 +1,6 @@
-"""DeviceIndex: HBM-resident gather tables derived from IndexData.
+"""DeviceIndex: device-resident gather tables derived from IndexData.
 
-Layout choices (TPU-first, see DESIGN.md):
+Layout choices (batched gathers first, see DESIGN.md):
   - fm_blocks: (n_blocks, 9) uint32 — per 32 BWT rows: 5 cumulative char
     counts + 32 chars packed 4-bit (nibble k of word k>>3). Batched rank =
     one 9-word row gather + vectorized nibble counting, vs the reference's

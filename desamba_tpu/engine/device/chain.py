@@ -170,7 +170,7 @@ def chain_kernel(anc, n_anc):
 @jax.jit
 def chain_step(packed, gidx, n_anc):
     """Assemble per-read anchors from the flat ladder pack and chain
-    them, all on device (the pack never leaves HBM).
+    them, all on device (the pack never leaves device memory).
 
     packed: (P, 13) ladder rows; gidx: (B, A2) int32 row ids in gold
     insertion order (-1 pad, built on host from the small base/cnt/skip

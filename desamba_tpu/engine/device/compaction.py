@@ -2,13 +2,9 @@
 
 The device engines compact their active lanes to a static width before
 each heavy iteration step (gather state -> work at width k -> scatter
-back). Round 2 did the selection with `jax.lax.top_k(where(mask, B-i,
-0), k)`, which lowers to a full variadic sort on TPU — measured ~2.5 ms
-per call at B=2048, and together with the concatenate-pad scatter the
-compaction machinery cost ~11 ms of the rescore VM's ~14.5 ms
-iteration. The cumsum form below is a scan plus a k-wide scatter
-(~30 us) with identical selection semantics: the first k active lanes
-in ascending lane order.
+back). The selection is a cumsum scan plus a k-wide scatter instead of
+`jax.lax.top_k(where(mask, B-i, 0), k)`, which lowers to a full sort;
+both select the first k active lanes in ascending lane order.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Batched FM rank + backward MEM search on device.
 
 The reference's hottest scalar loop (occ: src/bwt.c:43-65, called twice per
-char per seed, SURVEY §3.4) is re-designed for the TPU in POSITION space:
+char per seed, SURVEY §3.4) is re-designed for batched lanes in POSITION space:
 because this index keeps the full suffix array (row_pos) and its inverse
 (isa), the whole backward-extension interval phase of bwt_MEM_search
 (src/cly.c:1388-1447) collapses to a handful of *parallel* packed LCEs —
@@ -75,10 +75,8 @@ class WalkRefs(NamedTuple):
 def _rank_from_blocks(fm_blocks, r, c):
     """occ(c, r): count of char c in rows [0, r). r, c: (N,) int32.
 
-    Gathers the whole 9-word (36 B) block as ONE row gather: gathers on
-    this chip cost ~10 ns per DESCRIPTOR nearly independent of row width
-    up to ~256 B, so one 9-word row beats five 1-word elements ~5x on
-    the ladder's hottest loop."""
+    Gathers the whole 9-word (36 B) block as ONE row gather instead of
+    five 1-word element gathers on the ladder's hottest loop."""
     blk = r // BLOCK
     within = r - blk * BLOCK
     fb9 = fm_blocks.reshape(-1, 9)

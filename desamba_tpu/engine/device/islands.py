@@ -1,7 +1,7 @@
 """Device islands stage: batched e-kmer existence probe.
 
 The per-position compute (rolling e-kmers, complexity filter, two 64-bit
-hashes, bit-table probes) runs on TPU over a (batch, positions) grid; the
+hashes, bit-table probes) runs on device over a (batch, positions) grid; the
 cheap island segmentation walk runs on host from the hit mask using an
 arithmetic per-run formulation equivalent to the reference's scan
 (src/cly.c:1083-1158, see engine/gold/islands.py for the position-walk

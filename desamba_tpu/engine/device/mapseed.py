@@ -91,7 +91,7 @@ def qslice13(codes_pk, buf_len, ridx, start, step):
     codes_pk: (B, ceil(2*Lmax/16)) packed F+R buffer (textwalk.pack2);
     buf_len: (B,) = 2*read_len; ridx/start: (N,); step: +1/-1.
     Returns (N, 13) uint8. Two word gathers per lane instead of 13
-    char gathers (~12 ns per gathered element on this chip)."""
+    char gathers."""
     W = LV_L + 1
     ar = jnp.arange(W, dtype=I32)[None, :]
     base = start if step > 0 else start - (W - 1)
@@ -246,8 +246,8 @@ def map_seed_lanes(ix: IndexRefs, codes_pk, buf_len, q_mem, q_lv,
     (N,) is given, lane i's anchors write to anchors[rows[i]] (M = full
     lane count; out-of-range rows are dropped) — this lets the ladder
     carry the big anchor buffer in FULL lane space and skip the
-    per-iteration compaction gather/scatter of it (~10 ns/element on
-    TPU, the dominant ladder cost). Without rows, M == N."""
+    per-iteration compaction gather/scatter of it. Without rows,
+    M == N."""
     N = ridx.shape[0]
     lanes = jnp.arange(N, dtype=I32)
     wlanes = lanes if rows is None else rows

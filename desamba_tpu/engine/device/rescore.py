@@ -24,7 +24,6 @@ Modes: 0 done, 1 next-chain, 2 middle, 3 right, 4 left, 5 combine-middle.
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple
 
 import jax
@@ -50,11 +49,6 @@ F_CAP = 48       # leftmost survivors per fetch (stage-2, long runs)
 W_CAP = 704      # window chars incl. 50-pad
 
 M_DONE, M_NEXT, M_MID, M_RIGHT, M_LEFT = 0, 1, 2, 3, 4
-
-# trace-time cost-attribution switches (timing experiments ONLY — output
-# is wrong while set): DESAMBA_RESCORE_ABLATE=probes,runlen,window,...
-_ABLATE = frozenset(
-    x for x in os.environ.get("DESAMBA_RESCORE_ABLATE", "").split(",") if x)
 
 # uint32 coordinates are carried as int32 BIT PATTERNS: wrapped values
 # (a match crossing the read head / reference start) are negative ints
@@ -92,10 +86,8 @@ REF_ROW_B = 256   # packed-ref row width in bytes for the window fetch
 def _ref_as_rows(ref_bin):
     """Reshape the packed reference into (NR, REF_ROW_B) rows (padded).
 
-    Gathers on this chip cost ~7-14 ns per DESCRIPTOR (per gathered
-    row), nearly independent of row width up to ~256 B — so a window
-    fetch should be 2 row-gathers, not width/4 element-gathers. Built
-    once per kernel call outside the while_loop.
+    A window fetch is then 2 row-gathers, not width/4 element-gathers.
+    Built once per kernel call outside the while_loop.
 
     Sharded tables (parallel/sharded.py) expose the same row view via
     as_rows: the row gather runs shard-locally + psum over idx."""
@@ -150,10 +142,9 @@ def _ref_chars(ref_rows, ref_bin, n_bases, offset, width):
 def _probe_hits(rk_row, rk_n, pv, p_on):
     """All read positions whose 9-mer equals each probe value, by a
     full compare-scan against the lane's UNSORTED per-position 9-mer
-    row (element scans cost ~0.001 ns on this chip vs ~13.5 ns per
-    gathered element, so scanning the whole K-row beats every
-    binary-search/gather scheme for K up to ~10^4 — and it removes the
-    per-batch argsort entirely).
+    row (an element scan is far cheaper than a gathered element, so
+    scanning the whole K-row replaces a binary-search/gather scheme and
+    the per-batch argsort it needed).
 
     rk_row: (N, K) per-position 9-mer values for each lane's chain
     direction; rk_n: (N,) valid positions; pv: (N, P) probe values.
@@ -224,8 +215,7 @@ def _run_len2(codes_pk, buf_len, rows, qstart, win_pk, win_len, wstart,
     at the read buffer / window bounds.
 
     Each 16-char chunk costs 4 word-gathers per element (vs 32 char
-    gathers unpacked — gathers are ~12 ns/element on this chip, so the
-    packing is an ~8x cut on the kernel's dominant term). Matching
+    gathers unpacked, the kernel's dominant term). Matching
     prefix length comes from the XOR of funnel-extracted words: trailing
     2-bit zero groups for forward runs, leading for backward.
 
@@ -529,8 +519,6 @@ def _proc_micro(st: VMState, inp: RescoreIn, rows=None):
     consider = prior & ok & indel_ok & (slots > brk_slot[:, None])
     node_max = jnp.maximum(
         c[:, 2], jnp.max(jnp.where(consider, new, -(1 << 30)), axis=1))
-    if "node" in _ABLATE:
-        node_max = c[:, 2] + 1
     sms = sms.at[lanes, cs, 3].set(jnp.where(proc, node_max, c[:, 3]))
     st = st._replace(sms=sms, cur_sms=jnp.where(proc, st.cur_sms + 1,
                                                 st.cur_sms))
@@ -571,9 +559,6 @@ def _proc_micro(st: VMState, inp: RescoreIn, rows=None):
     found = okc.any(axis=1)
     first_e = jnp.argmax(okc, axis=1)
     found_ci = jnp.where(found, ents[lanes, first_e, 1], 0)
-    if "combine" in _ABLATE:
-        found = jnp.zeros((B,), bool)
-        found_ci = jnp.zeros((B,), I32)
     # absorb
     aci = jnp.clip(found_ci, 0, C_CAP - 1)
     for fld, red in ((C_SUM, "add"), (C_ANUM, "add"), (C_INDEL, "add"),
@@ -714,10 +699,7 @@ def _fetch_body(st: VMState, rows, inp: RescoreIn, rk_tables, codes_pk,
         jnp.where(is_r, st.c_t_off + t_glob,
                   jnp.where(bug_l, st.c_t_off + t_glob - msr,
                             st.c_t_off + t_glob - msr - OVER_SEARCH_M2)))
-    if "window" in _ABLATE:
-        win = jnp.zeros((B, W_CAP), jnp.uint8)
-    else:
-        win = _ref_chars(ref_rows, ref_bin, n_bases, goff, W_CAP)
+    win = _ref_chars(ref_rows, ref_bin, n_bases, goff, W_CAP)
     # bug branch: window chars sit at [0:msr], zero-filled to msr+50
     wpos = jnp.arange(W_CAP, dtype=I32)[None, :]
     win = jnp.where(bug_l[:, None] & (wpos >= msr[:, None]), 0, win)
@@ -762,13 +744,9 @@ def _fetch_body(st: VMState, rows, inp: RescoreIn, rk_tables, codes_pk,
     rkv = rk_tables
     K_rk = rkv.shape[2]
     rkn = jnp.where(l_read >= K9, l_read - K9 + 1, 0)
-    # flat leading-axis row gather (the fast gather form on this chip)
+    # flat leading-axis row gather
     rk_row = rkv.reshape(-1, K_rk)[rows * 2 + dslot]    # (B, K)
-    if "probes" in _ABLATE:
-        qpos = jnp.full((B, P_CAP, H_CAP), K_rk, I32)
-        cnt = jnp.zeros(pv.shape, I32)
-    else:
-        qpos, cnt = _probe_hits(rk_row, rkn, pv, p_on)
+    qpos, cnt = _probe_hits(rk_row, rkn, pv, p_on)
     f3 = (p_on & (cnt > H_CAP)).any(axis=1)
     st = st._replace(fallback=st.fallback | f3,
                      fb_reason=st.fb_reason | jnp.where(f3, 4, 0))
@@ -804,11 +782,8 @@ def _fetch_body(st: VMState, rows, inp: RescoreIn, rk_tables, codes_pk,
     sq = jnp.where(is_l[:, None], qbase + c_qpos + K9, qbase + c_qpos - 1)
     sw = jnp.where(is_l[:, None], t0[:, None] + c_tp + K9,
                    t0[:, None] + c_tp - 1)
-    if "runlen" in _ABLATE:
-        short = jnp.zeros((B, CF_CAP), I32)
-    else:
-        short = _run_len2(codes_pk, inp.buf_len, rows, sq, win_pk, win_len,
-                          sw, sstep, jnp.full((B, CF_CAP), 4, I32), c_on)
+    short = _run_len2(codes_pk, inp.buf_len, rows, sq, win_pk, win_len,
+                      sw, sstep, jnp.full((B, CF_CAP), 4, I32), c_on)
     lead_ok = c_on & ((short < 4) | (c_iv == 4))
 
     # stage 2: compact leftmost survivors to F_CAP for the long run
@@ -830,11 +805,8 @@ def _fetch_body(st: VMState, rows, inp: RescoreIn, rk_tables, codes_pk,
     lq = jnp.where(is_l[:, None], qbase + f_qpos - 1, qbase + f_qpos + K9)
     lw = jnp.where(is_l[:, None], t0[:, None] + f_tpos - 1,
                    t0[:, None] + f_tpos + K9)
-    if "runlen" in _ABLATE:
-        longr = jnp.zeros((B, F_CAP), I32)
-    else:
-        longr = _run_len2(codes_pk, inp.buf_len, rows, lq, win_pk, win_len,
-                          lw, lstep, long_cap, f_ok)
+    longr = _run_len2(codes_pk, inp.buf_len, rows, lq, win_pk, win_len,
+                      lw, lstep, long_cap, f_ok)
     back = jnp.where(is_l[:, None], longr, f_short)
     fwd = jnp.where(is_l[:, None], f_short, longr)
     total = back + fwd + 1

@@ -1,8 +1,7 @@
-"""64-bit integer ops on (hi, lo) uint32 pairs for TPU.
+"""64-bit integer ops on (hi, lo) uint32 pairs.
 
-TPU has no native 64-bit integers (XLA emulates them slowly); the hash and
-k-mer math only needs shifts/adds/xors, which map directly onto uint32
-VPU lanes.
+JAX runs with 32-bit integers unless x64 mode is on; the hash and k-mer
+math only needs shifts/adds/xors, which map directly onto uint32 lanes.
 """
 from __future__ import annotations
 

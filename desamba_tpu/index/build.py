@@ -11,8 +11,8 @@ with a serial LF-walk over the whole BWT (src/idx.c:1163-1237). Since every
 31-mer occurs exactly once in the unitig set, the row order and every row's
 text position are directly constructible — so we build the full SA (row ->
 text position) in vectorized numpy with no suffix sorting and no LF walks.
-On TPU this makes seed location a pure gather (engine/device), and here it
-makes index build fully array-parallel.
+On the device this makes seed location a pure gather (engine/device), and
+here it makes index build fully array-parallel.
 
 Reference algorithms mirrored:
   - maximal-ACGT-run k-mer extraction        (src/idx_sort.c, jellyfish)

@@ -1,7 +1,7 @@
 """MeshClassifier: the full classify pipeline on a jax.sharding.Mesh.
 
 The reference scales by pthreads over reads with the index in shared
-memory (src/lib/kthread.c:32-57); the TPU-native mapping is a 2-D mesh:
+memory (src/lib/kthread.c:32-57); the device mapping is a 2-D mesh:
 
   dp  — reads. Every per-lane kernel (existence probe, ladders, M2
         chaining, rescore prep, rescore VM) runs under `shard_map` with
@@ -10,9 +10,9 @@ memory (src/lib/kthread.c:32-57); the TPU-native mapping is a 2-D mesh:
         scaling is embarrassingly parallel per batch.
   idx — index memory. The existence-filter bit tables are sharded by
         address range: probes are computed everywhere, answered by the
-        owning shard, and OR-merged with a psum riding ICI (the pattern
-        for holding the RefSeq-"all" 69 GB index across chips,
-        /root/reference/README.md:50). The gather tables used inside the
+        owning shard, and OR-merged with a psum over NVLink (the pattern
+        for holding the RefSeq-"all" 69 GB index across cards, the
+        reference README.md:50). The gather tables used inside the
         sequential FM walks (fm_blocks, lfc, hash13, ref_bin) are
         replicated at viral scale; sharding them uses the same
         ownership-mask+psum per gather.
@@ -24,11 +24,11 @@ Layout contract with DeviceClassifier (which this subclasses):
     (shard stride = pack_cap // n_dp) before building gather maps;
   - chain_step consumes the pack replicated (GSPMD all-gathers the
     dp-sharded ladder output at the jit boundary — the pack is a few
-    hundred KB, one ICI hop).
+    hundred KB).
 
 Bit-parity with the single-device engine is asserted by
-tests/test_mesh_classifier.py on an 8-device CPU mesh and exercised by
-__graft_entry__.dryrun_multichip.
+tests/test_mesh_classifier.py on an 8-device CPU mesh and, on four
+GPUs, by `chip_smoke.py --four`.
 """
 from __future__ import annotations
 
@@ -38,7 +38,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import PartitionSpec as P
 
 from ..engine.device import chain as dc
@@ -57,8 +56,8 @@ class MeshClassifier(DeviceClassifier):
         range over ``idx`` — no device holds a full copy of any index
         array; gathers are answered with ownership-mask + psum
         (parallel/sharded.py). This is the layout for indexes beyond
-        one chip's HBM (the reference's 69 GB RefSeq-"all" envelope,
-        /root/reference/README.md:50). Off (default), only the
+        one card's memory (the reference's 69 GB RefSeq-"all" envelope,
+        its README.md:50). Off (default), only the
         existence-filter bit tables shard (viral-scale layout)."""
         super().__init__(idx, opts, batch_size=batch_size)
         self.mesh = mesh if mesh is not None else make_mesh(
@@ -135,10 +134,10 @@ class MeshClassifier(DeviceClassifier):
                 # concatenate to the global row-major order)
                 return jnp.packbits(hitp, axis=1).reshape(-1)
 
-            self._cache[key] = jax.jit(shard_map(
+            self._cache[key] = jax.jit(jax.shard_map(
                 step, mesh=self.mesh,
                 in_specs=(P("idx"), P("idx"), P("dp"), P("dp")),
-                out_specs=P("dp"), check_rep=False))
+                out_specs=P("dp"), check_vma=False))
         return self._cache[key](self.placed["ekmer0"], self.placed["ekmer1"],
                                 strands, lens)
 
@@ -171,12 +170,12 @@ class MeshClassifier(DeviceClassifier):
                     return packed, info, povf.reshape(1)
 
                 n_sh = len(self._sh_fields)
-                self._cache[key] = jax.jit(shard_map(
+                self._cache[key] = jax.jit(jax.shard_map(
                     step, mesh=self.mesh,
                     in_specs=((P("idx"),) * n_sh, P(), P("idx"), P(),
                               P("idx"), P(), P(), P(), P(), P(),
                               P(None, "dp")),
-                    out_specs=(P("dp"),) * 3, check_rep=False))
+                    out_specs=(P("dp"),) * 3, check_vma=False))
             else:
                 def step(ixr, fm_blocks, rank6, hash13, codes, blen, pre,
                          q_mem, q_lv, lanes):
@@ -187,11 +186,11 @@ class MeshClassifier(DeviceClassifier):
 
                 # reads are replicated for the ladders (lanes of one read
                 # may land on any shard); lane columns split over dp
-                self._cache[key] = jax.jit(shard_map(
+                self._cache[key] = jax.jit(jax.shard_map(
                     step, mesh=self.mesh,
                     in_specs=(P(), P(), P(), P(), P(), P(), P(), P(), P(),
                               P(None, "dp")),
-                    out_specs=(P("dp"),) * 3, check_rep=False))
+                    out_specs=(P("dp"),) * 3, check_vma=False))
         dix = self.dix
         if self.shard_full:
             return self._cache[key](self._sh_ixr, self.ixr.ref_off,
@@ -216,21 +215,21 @@ class MeshClassifier(DeviceClassifier):
         if key not in self._cache:
             # pack replicated (GSPMD all-gathers the dp-sharded ladder
             # output at the boundary); reads split over dp
-            self._cache[key] = jax.jit(shard_map(
+            self._cache[key] = jax.jit(jax.shard_map(
                 dc.chain_step.__wrapped__, mesh=self.mesh,
                 in_specs=(P(), P("dp"), P("dp")),
-                out_specs=(P("dp"),) * 6, check_rep=False))
+                out_specs=(P("dp"),) * 6, check_vma=False))
         return self._cache[key](packed, jnp.asarray(gidx),
                                 jnp.asarray(nanc))
 
     def _k_prep(self, sel, chs3, ns3, pre3, anc3):
         key = ("prep", chs3.shape)
         if key not in self._cache:
-            self._cache[key] = jax.jit(shard_map(
+            self._cache[key] = jax.jit(jax.shard_map(
                 dc.prep_rescore.__wrapped__, mesh=self.mesh,
                 in_specs=(P("dp"), P(None, "dp"), P(None, "dp"),
                           P(None, "dp"), P(None, "dp")),
-                out_specs=(P("dp"),) * 6, check_rep=False))
+                out_specs=(P("dp"),) * 6, check_vma=False))
         return self._cache[key](jnp.asarray(sel), chs3, ns3, pre3, anc3)
 
     def _k_rescore(self, inp):
@@ -252,11 +251,11 @@ class MeshClassifier(DeviceClassifier):
                                                ref_len_arr)
                     return ch, fb, reason, iters.reshape(1)
 
-                self._cache[key] = jax.jit(shard_map(
+                self._cache[key] = jax.jit(jax.shard_map(
                     step, mesh=self.mesh,
                     in_specs=(drr.RescoreIn(*([P("dp")] * 8)), P("idx"),
                               P(), P()),
-                    out_specs=(P("dp"),) * 4, check_rep=False))
+                    out_specs=(P("dp"),) * 4, check_vma=False))
                 return self._cache[key](inp, self._sh_ref, dix.ref_off,
                                         dix.ref_len_arr)
 
@@ -265,10 +264,10 @@ class MeshClassifier(DeviceClassifier):
                                            ref_len_arr)
                 return ch, fb, reason, iters.reshape(1)  # per-shard iters
 
-            self._cache[key] = jax.jit(shard_map(
+            self._cache[key] = jax.jit(jax.shard_map(
                 step, mesh=self.mesh,
                 in_specs=(drr.RescoreIn(*([P("dp")] * 8)), P(), P(), P()),
-                out_specs=(P("dp"),) * 4, check_rep=False))
+                out_specs=(P("dp"),) * 4, check_vma=False))
         if self.shard_full:
             return self._cache[key](inp, self._sh_ref, dix.ref_off,
                                     dix.ref_len_arr)

@@ -2,9 +2,9 @@
 
 The reference is strictly single-host: pthreads over reads with the
 whole index in shared RAM (src/lib/kthread.c:32-57, SURVEY §2.2). Its
-RefSeq-"all" envelope (69 GB classify-time index,
-/root/reference/README.md:50) therefore needs a 69 GB-RAM machine. The
-TPU-native scale-out instead spans hosts with `jax.distributed`:
+RefSeq-"all" envelope (69 GB classify-time index, the reference
+README.md:50) therefore needs a 69 GB-RAM machine. This scale-out
+instead spans hosts with `jax.distributed`:
 
   - ``dp`` (reads) is laid out across *hosts* — read batches are an
     embarrassingly parallel stream, so the only DCN traffic is input
@@ -12,7 +12,8 @@ TPU-native scale-out instead spans hosts with `jax.distributed`:
     kt_pipeline analogue, DeviceClassifier.classify_file).
   - ``idx`` (index memory) is laid out *within* a host's devices so the
     ownership-mask + psum merges of sharded index probes
-    (parallel/mesh.py) ride ICI, never DCN.
+    (parallel/mesh.py) ride the host's device links (NVLink), never
+    DCN.
 
 This module only arranges processes and devices; the sharded kernels in
 mesh.py / classifier.py are mesh-shape-agnostic.
@@ -53,10 +54,11 @@ def host_mesh(n_idx: int | None = None, devices=None) -> Mesh:
     """Build a (dp, idx) mesh whose ``idx`` axis never crosses hosts.
 
     Devices are grouped by process index; ``idx`` splits the devices of
-    one process (ICI), ``dp`` concatenates across the process groups
+    one process (NVLink), ``dp`` concatenates across the process groups
     (DCN) and any leftover within-process factor. With `n_idx` omitted,
     the index axis takes all devices of one process — the layout for an
-    index too big for one chip but fitting in one host's combined HBM.
+    index too big for one card but fitting in one host's combined device
+    memory.
     """
     devices = list(jax.devices() if devices is None else devices)
     by_proc: dict[int, list] = {}
@@ -74,7 +76,7 @@ def host_mesh(n_idx: int | None = None, devices=None) -> Mesh:
     rows = []
     for g in groups:
         # idx is the fastest-varying (innermost) factor of a host's
-        # devices, so each idx group is one ICI domain
+        # devices, so each idx group stays inside one host
         arr = np.array(g).reshape(per_host // n_idx, n_idx)
         rows.append(arr)
     grid = np.concatenate(rows, axis=0)  # (dp, idx)

@@ -1,7 +1,7 @@
 """Device mesh + sharded classify step.
 
 The reference is single-host shared-memory (SURVEY §2.2): pthreads data
-parallelism over reads, index fully replicated in RAM. The TPU-native
+parallelism over reads, index fully replicated in RAM. The device
 scale-out maps those axes onto a 2-D `jax.sharding.Mesh`:
 
   - ``dp``  — data parallelism over reads (the analogue of `kt_for` over
@@ -11,7 +11,8 @@ scale-out maps those axes onto a 2-D `jax.sharding.Mesh`:
     RefSeq-"all" index across hosts, BASELINE.md north star). The
     existence-filter bit tables are sharded by address range; probes are
     computed everywhere, answered by the owning shard, and OR-merged with
-    an ``psum`` riding ICI.
+    a ``psum`` over the device links (NVLink between the cards of one
+    host, all to all, so the mesh shape follows the algorithm).
 
 At viral scale (test/demo) the FM arrays are replicated per device and
 only the Bloom tables are sharded; the full FM shard-by-row-range path
@@ -142,13 +143,11 @@ def sharded_seed_step(mesh: Mesh, placed, l_ek: int, single_base_max: int,
         mem_valid = jnp.stack(mem_valids, axis=1)
         return hit.sum(axis=1), mem_len, mem_valid
 
-    from jax.experimental.shard_map import shard_map
-
     spec_in = (P(), P(), P(), P(), P(), P("idx"), P("idx"), P("dp"),
                P("dp"))
     spec_out = (P("dp"), P("dp"), P("dp"))
-    sm = jax.jit(shard_map(step, mesh=mesh, in_specs=spec_in,
-                           out_specs=spec_out, check_rep=False))
+    sm = jax.jit(jax.shard_map(step, mesh=mesh, in_specs=spec_in,
+                               out_specs=spec_out, check_vma=False))
 
     def run(codes, lengths):
         # placed arrays are runtime args of the jitted shard_map (passing

@@ -1,14 +1,14 @@
 """Row-range sharding of the gather-table index across the ``idx`` axis.
 
 The reference replicates its whole index in every process's RAM
-(SURVEY §2.2); its RefSeq-"all" classify envelope is 69 GB
-(/root/reference/README.md:50), far beyond one chip's HBM. The
-TPU-native layout splits every large gather table by row range over the
+(SURVEY §2.2); its RefSeq-"all" classify envelope is 69 GB (the
+reference README.md:50), beyond one card's memory. This layout splits
+every large gather table by row range over the
 mesh ``idx`` axis and answers each gather with the ownership-mask +
 psum pattern already used for the existence-filter tables
 (parallel/mesh.py): every device computes the local part of the gather
-(zero where it does not own the row) and an ``psum`` over ``idx``
-(riding ICI) reconstructs the values everywhere.
+(zero where it does not own the row) and a ``psum`` over ``idx``
+(over NVLink) reconstructs the values everywhere.
 
 ``ShardedArray`` carries one device's shard inside a ``shard_map``
 body and reproduces the *global* array's ``__getitem__`` / ``shape``,

@@ -3,6 +3,7 @@ format) equals the in-process engine, for both -f SAM and DES and for
 multi-batch streams (the 5000-read/10 Mbp pipeline batching)."""
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -45,7 +46,8 @@ def test_cli_matches_engine(cli_setup, fmt, tmp_path):
          "-o", str(out)],
         capture_output=True, text=True,
         env={"PATH": "/usr/bin:/bin:/usr/local/bin",
-             "JAX_PLATFORMS": "cpu", "PYTHONPATH": "/root/repo"})
+             "JAX_PLATFORMS": "cpu",
+             "PYTHONPATH": str(Path(__file__).resolve().parent.parent)})
     assert r.returncode == 0, r.stderr[-2000:]
     eng = ClassifyEngine(idx, Options(out_format=fmt))
     exp = []

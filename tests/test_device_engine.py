@@ -1,5 +1,5 @@
-"""Device kernel parity vs the gold engine (runs on CPU backend in tests;
-the same kernels run unchanged on TPU)."""
+"""Device kernel parity vs the gold engine, on the CPU backend (the GPU
+run of the same path is chip_smoke.py)."""
 import numpy as np
 import pytest
 

@@ -16,7 +16,6 @@ def test_sharded_array_getitem_matches_global():
     if len(jax.devices()) < 4:
         pytest.skip("needs the virtual multi-device CPU mesh")
     import jax.numpy as jnp
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
     from desamba_tpu.parallel.mesh import make_mesh
@@ -31,8 +30,8 @@ def test_sharded_array_getitem_matches_global():
     def step(flat, i):
         return wrap_local(flat, gshape)[i]
 
-    got = jax.jit(shard_map(step, mesh=mesh, in_specs=(P("idx"), P()),
-                            out_specs=P(), check_rep=False))(
+    got = jax.jit(jax.shard_map(step, mesh=mesh, in_specs=(P("idx"), P()),
+                                out_specs=P(), check_vma=False))(
         placed, jnp.asarray(idx))
     np.testing.assert_array_equal(np.asarray(got), glob[idx])
 

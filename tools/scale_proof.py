@@ -1,5 +1,6 @@
 """Scale validation: build an index from a large synthetic FASTA and
-classify a read corpus against it (VERDICT r1 item 6).
+classify a read corpus against it. The corpora come from
+desamba_tpu/corpus.py.
 
 Usage:
   python3 tools/scale_proof.py gen <mb> <out.fa>        # synthetic genome
@@ -12,51 +13,20 @@ import resource
 import sys
 import time
 
-sys.path.insert(0, '/root/repo')
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
+from desamba_tpu import corpus  # noqa: E402
 
 
 def gen(mb: int, out: str):
-    rng = np.random.default_rng(99)
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    n_seq = max(4, mb // 8)
-    per = mb * (1 << 20) // n_seq
     t0 = time.time()
-    with open(out, "w") as f:
-        core = bases[rng.integers(0, 4, 5000)].tobytes().decode()
-        for i in range(n_seq):
-            f.write(f">tid|{1000 + i}|ref|SCALE_{i} synthetic\n")
-            s = bases[rng.integers(0, 4, per)].tobytes().decode()
-            # sprinkle shared repeats + N patches (dBG realism)
-            s = list(s)
-            for at in range(50_000, per - 6000, 1_000_000):
-                s[at : at + 5000] = core
-            for at in range(25_000, per - 100, 400_000):
-                s[at : at + 3] = "NNN"
-            s = "".join(s)
-            for j in range(0, len(s), 80):
-                f.write(s[j : j + 80] + "\n")
+    corpus.scale_genome(out, mb)
     print(f"gen: {mb} MB in {time.time() - t0:.1f}s -> {out}")
 
 
 def gen_dup(mb: int, out: str):
-    """Synthetic genome with ~2x content duplication: half the k-mers of
-    a same-size random genome (real reference collections repeat; the
-    external build's k-mer table scales with UNIQUE k-mers)."""
-    rng = np.random.default_rng(123)
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    n_seq = max(8, mb // 16)
-    per = mb * (1 << 20) // n_seq // 2
     t0 = time.time()
-    with open(out, "w") as f:
-        for i in range(n_seq):
-            core = bases[rng.integers(0, 4, per)].tobytes().decode()
-            # each sequence = unique core + a shifted copy of it
-            s = core + "NNN" + core[137:] + core[:137]
-            f.write(f">tid|{2000 + i}|ref|DUP_{i} synthetic\n")
-            for j in range(0, len(s), 80):
-                f.write(s[j : j + 80] + "\n")
+    corpus.dup_genome(out, mb)
     print(f"gen_dup: {mb} MB in {time.time() - t0:.1f}s -> {out}")
 
 
@@ -101,22 +71,10 @@ def build(fa: str, out: str):
 
 
 def reads(idxdir: str, n: int, out: str):
-    from desamba_tpu.engine.gold.mapseed import get_ref
     from desamba_tpu.index.store import load_index
 
-    idx = load_index(idxdir)
-    rng = np.random.default_rng(7)
-    total = int(idx.ref_off[-1] + idx.ref_len[-1])
     t0 = time.time()
-    with open(out, "w") as f:
-        for k in range(n):
-            ln = int(rng.integers(200, 2000))
-            st = int(rng.integers(0, total - ln))
-            seq = get_ref(idx.ref_bin, st, ln, True).copy()
-            pos = rng.integers(0, ln, size=ln // 10)
-            seq[pos] = (seq[pos] + rng.integers(1, 4, size=len(pos))) % 4
-            s = "".join("ACGT"[c] for c in seq)
-            f.write(f"@s{k}\n{s}\n+\n{'I' * ln}\n")
+    corpus.sampled_reads(load_index(idxdir), n, out)
     print(f"reads: {n} in {time.time() - t0:.1f}s -> {out}")
 
 
@@ -125,10 +83,8 @@ def classify(idxdir: str, fq: str, gold_sample: int = 0,
     import jax
 
     if engine == "host":
-        # keep jax off the (possibly unreachable) accelerator backend
+        # the host engine needs no accelerator
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/desamba_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     from desamba_tpu.engine.device.classifier import DeviceClassifier
     from desamba_tpu.engine.gold.classify import ClassifyEngine, Options
     from desamba_tpu.index.store import load_index

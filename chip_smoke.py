@@ -4,6 +4,7 @@
     python chip_smoke.py            one card: corpora (b) and (c) below
     python chip_smoke.py --mb 64    the same on a larger reference
     python chip_smoke.py --four     the multi-card mesh path, four cards
+    python chip_smoke.py --four --corpus repeat   the same on corpus (c)
 
 Corpora, all made from seeds in desamba_tpu/corpus.py:
   (a) a synthetic reference of --mb MiB (default 16; deSAMBA's own demo
@@ -24,10 +25,12 @@ byte-equal to the gold engine, so the passes also agree with each other,
 and the host oracle may finish at most 1% of the reads of (b) and none
 of (c). The rescore stage is then timed alone on the batches of (b).
 
---four: MeshClassifier on a 2x2 (dp x idx) mesh and, with every index
-table row-sharded, on a 1x4 mesh, both on (b), each compared with the
-single-card engine and with gold; device memory in use is printed per
-card after each placement.
+--four: MeshClassifier on a 2x2 (dp x idx) mesh and, with the big gather
+tables row-sharded, on a 1x4 mesh, both on (b) (or on (c) with --corpus
+repeat), each compared with gold and with the single-card engine. Each
+idx-sharded table must sit one row range per card; device memory in use
+is printed per card before and after each placement, but not checked:
+the engine still keeps a whole single-card index on the first card.
 
 Exits non-zero, before the result line, when JAX finds no GPU or any
 check fails. The last line of stdout is the result:
@@ -264,37 +267,85 @@ def print_memory(label: str, devices):
     print(f"{label}: bytes_in_use per card {used}", flush=True)
 
 
-def run_four(d: str, devices):
+def check_spread(label: str, eng):
+    """Every idx-sharded table must hold one 1/n_idx row range on each
+    card of the mesh. Only these tables are checked: the engine also keeps
+    the single-card DeviceIndex on the default card and replicates the FM
+    tables to every card, so the totals per card do not spread."""
+    cards = set(eng.mesh.devices.flat)
+    total = 0
+    for name, arr in eng.sharded_tables().items():
+        shards = arr.addressable_shards
+        on = {s.device for s in shards}
+        rows = {s.data.shape[0] for s in shards}
+        if on != cards or rows != {arr.shape[0] // eng.n_idx}:
+            fail(f"{label}: {name} of {arr.shape[0]} rows sits on "
+                 f"{len(on)} of {len(cards)} cards with shard rows {rows}")
+        total += arr.nbytes
+    print(f"{label}: {len(eng.sharded_tables())} idx-sharded tables, "
+          f"{total} bytes, one 1/{eng.n_idx} row range on each of "
+          f"{len(cards)} cards; the default card also keeps the whole "
+          f"DeviceIndex ({device_index_bytes(eng.dix)} bytes) and the FM "
+          f"tables are replicated, so per-card totals are not checked",
+          flush=True)
+
+
+CORPORA = {  # --corpus: (index, reads, gold SAM)
+    "scale": ("idx", "reads.fq", "reads.gold.sam"),
+    "repeat": ("rep_idx", "rep.fq", "rep.gold.sam"),
+}
+
+
+def run_four(d: str, corpus: str, devices, clock):
+    """Both mesh layouts on one corpus, each held to gold, then the
+    single-card engine, held to gold and to each layout. Fallback reads
+    are printed, not limited: a mesh shard packs its ladder lanes into
+    1/n_dp of the single card's room, so a lane that fits one card can
+    overflow its shard and go to the host oracle."""
+    import gc
+
     from desamba_tpu.engine.device.classifier import DeviceClassifier
     from desamba_tpu.engine.gold.classify import Options
     from desamba_tpu.index.store import load_index
     from desamba_tpu.parallel.classifier import MeshClassifier
     from desamba_tpu.parallel.mesh import make_mesh
 
-    idx = load_index(os.path.join(d, "idx"))
-    fq = os.path.join(d, "reads.fq")
-    with open(os.path.join(d, "reads.gold.sam")) as f:
+    idx_dir, fq_name, gold_name = CORPORA[corpus]
+    idx = load_index(os.path.join(d, idx_dir))
+    fq = os.path.join(d, fq_name)
+    with open(os.path.join(d, gold_name)) as f:
         gold = f.read()
-    single, _, dt = classify_pass(DeviceClassifier(idx, Options()), fq)
-    print(f"single card: {dt:.3f} s", flush=True)
-    if single != gold:
-        fail(f"single-card SAM differs from gold: {sam_diff(single, gold)}")
-    print_memory("before the meshes", devices)
+    sams = {}
     for label, mesh, full in (("mesh dp=2 x idx=2", make_mesh(2, 2), False),
                               ("shard_full dp=1 x idx=4", make_mesh(1, 4),
                                True)):
+        gc.collect()
+        print_memory(f"{label}: before placement", devices)
         eng = MeshClassifier(idx, Options(), mesh=mesh, shard_full=full)
+        check_spread(label, eng)
         print_memory(f"{label} placed", devices)
+        mark = clock.mark()
         sam, n_reads, dt = classify_pass(eng, fq)
         fb = eng.fallback_stats()["fallback_reads"]
-        print(f"{label}: {n_reads} reads in {dt:.3f} s, host-oracle "
-              f"fallback reads {fb}", flush=True)
+        print(f"{label} ({corpus}): {n_reads} reads in {dt:.3f} s "
+              f"({clock.since(mark)}), host-oracle fallback reads {fb}",
+              flush=True)
+        if sam != gold:
+            fail(f"{label}: SAM differs from gold: {sam_diff(sam, gold)}")
+        sams[label] = sam
+        del eng
+    mark = clock.mark()
+    single, n_reads, dt = classify_pass(DeviceClassifier(idx, Options()), fq)
+    print(f"single card ({corpus}): {n_reads} reads in {dt:.3f} s "
+          f"({clock.since(mark)})", flush=True)
+    if single != gold:
+        fail(f"single-card SAM differs from gold: {sam_diff(single, gold)}")
+    for label, sam in sams.items():
         if sam != single:
             fail(f"{label}: SAM differs from the single-card engine: "
                  f"{sam_diff(sam, single)}")
-        if sam != gold:
-            fail(f"{label}: SAM differs from gold: {sam_diff(sam, gold)}")
-        del eng
+    print(f"both layouts byte-equal to the single card and to gold on "
+          f"{n_reads} reads", flush=True)
 
 
 def main():
@@ -303,6 +354,9 @@ def main():
                     help="synthetic reference size in MiB (default 16)")
     ap.add_argument("--four", action="store_true",
                     help="run the four-card mesh path and nothing else")
+    ap.add_argument("--corpus", choices=sorted(CORPORA), default="scale",
+                    help="with --four: classify (b) scale (default) or "
+                         "(c) repeat")
     ap.add_argument("--corpus-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.corpus_child:
@@ -311,13 +365,7 @@ def main():
 
     # ask for CUDA: a broken plugin must be an error, not a CPU run
     os.environ.setdefault("JAX_PLATFORMS", "cuda")
-    # XLA's autotuner adds a third to the ~50 s an H100 takes to compile
-    # each big ladder or rescore program, which a run without a warm
-    # persistent cache cannot afford; it picks among equivalent code, so
-    # the integer results do not change
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "xla_gpu_autotune_level" not in flags:
-        os.environ["XLA_FLAGS"] = f"{flags} --xla_gpu_autotune_level=0"
+    import desamba_tpu  # noqa: F401  (its XLA_FLAGS, before JAX starts)
     import jax
 
     devices = jax.devices()
@@ -344,7 +392,7 @@ def main():
     print(f"corpus ready in {time.perf_counter() - t0:.2f} s: {d}",
           flush=True)
     if args.four:
-        run_four(d, devices[:4])
+        run_four(d, args.corpus, devices[:4], clock)
     else:
         run_one(d, clock)
     print(f"peak_bytes_in_use {dev.memory_stats()['peak_bytes_in_use']}",

@@ -5,5 +5,9 @@ A from-scratch re-implementation of the capabilities of hitbc/deSAMBA
 device-resident gather-table index, batched JAX classify kernels and
 shard_map scale-out over several GPUs. See DESIGN.md / SURVEY.md.
 """
+from .compile_cache import set_xla_flags
 
 __version__ = "0.1.0"
+
+# before any JAX backend starts: XLA reads XLA_FLAGS only then
+set_xla_flags()

@@ -26,9 +26,18 @@ Layout contract with DeviceClassifier (which this subclasses):
     dp-sharded ladder output at the jit boundary — the pack is a few
     hundred KB).
 
+Placement today: the engine is built on top of a single-card
+DeviceClassifier, so the default device keeps the whole DeviceIndex, and
+shard_index replicates the FM tables to every device; only the tables
+that sharded_tables() names are split over ``idx``.
+
+One thread dispatches (classify_reads / classify_file below): programs
+that span several devices, enqueued from two threads, can reach the
+devices in different orders and deadlock their collectives.
+
 Bit-parity with the single-device engine is asserted by
-tests/test_mesh_classifier.py on an 8-device CPU mesh and, on four
-GPUs, by `chip_smoke.py --four`.
+tests/test_mesh_classifier.py on an 8-device CPU mesh;
+`chip_smoke.py --four` is the same check on four GPUs.
 """
 from __future__ import annotations
 
@@ -51,13 +60,15 @@ from .mesh import make_mesh, shard_index
 class MeshClassifier(DeviceClassifier):
     def __init__(self, idx, opts=None, mesh=None, batch_size: int = 2048,
                  shard_full: bool = False):
-        """shard_full=True splits EVERY large gather table (FM blocks,
-        hash13, full SA, packed text/ref, REF_POS fan-out, ...) by row
-        range over ``idx`` — no device holds a full copy of any index
-        array; gathers are answered with ownership-mask + psum
-        (parallel/sharded.py). This is the layout for indexes beyond
-        one card's memory (the reference's 69 GB RefSeq-"all" envelope,
-        its README.md:50). Off (default), only the
+        """shard_full=True splits the large gather tables the ladders
+        and the rescore read (FM blocks, hash13, packed text/ref, REF_POS
+        fan-out, ...) by row range over ``idx``; their gathers are
+        answered with ownership-mask + psum (parallel/sharded.py). This
+        is the layout meant for indexes beyond one card's memory (the
+        reference's 69 GB RefSeq-"all" envelope, its README.md:50), but
+        it does not reach that yet: the single-card DeviceIndex still
+        sits whole on the default device and shard_index replicates the
+        FM tables to every device. Off (default), only the
         existence-filter bit tables shard (viral-scale layout)."""
         super().__init__(idx, opts, batch_size=batch_size)
         self.mesh = mesh if mesh is not None else make_mesh(
@@ -102,6 +113,33 @@ class MeshClassifier(DeviceClassifier):
         return type(self.ixr)(
             **vals, text_len=self.ixr.text_len, n_uni=self.ixr.n_uni,
             n_bases=self.ixr.n_bases)
+
+    def sharded_tables(self) -> dict:
+        """The placed tables that are row-sharded over ``idx``, by name."""
+        tabs = {"ekmer0": self.placed["ekmer0"],
+                "ekmer1": self.placed["ekmer1"]}
+        if self.shard_full:
+            tabs.update(zip(self._sh_fields, self._sh_ixr))
+            tabs.update(fm_blocks=self._sh_fm, hash13=self._sh_h13,
+                        ref_bin=self._sh_ref)
+        return tabs
+
+    # ---- dispatch from one thread ------------------------------------------
+    def classify_reads(self, recs):
+        for i in range(0, len(recs), self.batch_size):
+            yield from self._classify_batch(recs[i : i + self.batch_size])
+
+    def classify_file(self, path):
+        from ..io.fastx import read_fastx_fast
+
+        batch = []
+        for rec in read_fastx_fast(path):
+            batch.append(rec)
+            if len(batch) == self.batch_size:
+                yield from self._classify_batch(batch)
+                batch = []
+        if batch:
+            yield from self._classify_batch(batch)
 
     # ---- sharded kernels --------------------------------------------------
     def _k_bloom(self, strands, lens):

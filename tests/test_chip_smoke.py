@@ -18,7 +18,10 @@ SMOKE = REPO / "chip_smoke.py"
 
 
 def _run_smoke(script, platforms, cwd):
+    # no card is visible even on a host that has one, so the smoke can
+    # never reach a real GPU from here
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
     if platforms is not None:
         env["JAX_PLATFORMS"] = platforms
     return subprocess.run([sys.executable, str(script)], env=env, cwd=cwd,
@@ -27,8 +30,8 @@ def _run_smoke(script, platforms, cwd):
 
 @pytest.mark.parametrize("platforms", ["cpu", None])
 def test_smoke_fails_without_a_gpu(platforms):
-    """JAX_PLATFORMS=cpu, or the script's own request for CUDA on a host
-    without it: non-zero exit and no result line."""
+    """JAX_PLATFORMS=cpu, or the script's own request for CUDA where no
+    card is visible: non-zero exit and no result line."""
     r = _run_smoke(SMOKE, platforms, REPO)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
@@ -114,3 +117,28 @@ def test_smoke_check_holds_device_to_gold(repeat_corpus, gold, tmp_path):
         eng = chip_smoke.check_corpus("repeat", idx, str(d / "rep.fq"),
                                       str(sam), 0.0, clock)
         assert eng.fallback_stats()["fallback_reads"] == 0
+
+
+@pytest.mark.parametrize("shape,full", [((2, 2), False), ((1, 4), True)],
+                         ids=["mesh_2x2", "shard_full_1x4"])
+def test_smoke_spread_check_on_a_cpu_mesh(small_my_index, shape, full):
+    """--four's placement check passes on both layouts, and fails once one
+    idx-sharded table sits on a single device."""
+    import jax
+
+    import chip_smoke
+    from desamba_tpu.engine.gold.classify import Options
+    from desamba_tpu.parallel.classifier import MeshClassifier
+    from desamba_tpu.parallel.mesh import make_mesh
+
+    eng = MeshClassifier(small_my_index, Options(), mesh=make_mesh(*shape),
+                         shard_full=full)
+    names = set(eng.sharded_tables())
+    assert {"ekmer0", "ekmer1"} <= names
+    assert ({"fm_blocks", "hash13", "ref_bin", "text_pk"} <= names) == full
+    chip_smoke.check_spread("layout", eng)
+    eng.placed["ekmer1"] = jax.device_put(eng.placed["ekmer1"],
+                                          jax.devices()[0])
+    with pytest.raises(SystemExit) as e:
+        chip_smoke.check_spread("layout", eng)
+    assert "ekmer1" in str(e.value)

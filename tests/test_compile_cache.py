@@ -52,3 +52,21 @@ def test_env_dir_receives_the_compiled_program(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == str(tmp_path / "cc")
     assert any((tmp_path / "cc").iterdir())
+
+
+@pytest.mark.parametrize("given,want", [
+    ("", cc.AUTOTUNE_FLAG),
+    ("--xla_force_host_platform_device_count=2",
+     f"--xla_force_host_platform_device_count=2 {cc.AUTOTUNE_FLAG}"),
+    ("--xla_gpu_autotune_level=4", "--xla_gpu_autotune_level=4"),
+], ids=["unset", "other_flags", "caller_level"])
+def test_package_import_sets_the_autotune_level(given, want):
+    """Importing the package turns XLA's GPU autotuner off for the whole
+    process, unless the caller chose a level."""
+    code = ("import os, desamba_tpu\n"
+            "print(os.environ['XLA_FLAGS'])\n")
+    env = dict(os.environ, XLA_FLAGS=given, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == want

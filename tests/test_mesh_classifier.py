@@ -55,3 +55,45 @@ def test_mesh_full_pipeline_parity(small_my_index, noisy_reads):
     got = [format_result(r, small_my_index.ref_name, eng.opts)
            for r in eng.classify_reads(recs)]
     assert got == exp
+
+
+def test_mesh_dispatches_from_one_thread(small_my_index, noisy_reads,
+                                         tmp_path):
+    """classify_file on a mesh runs every device stage on the calling
+    thread, over several batches, and still equals the single-device
+    engine."""
+    import threading
+
+    import jax
+
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8-device virtual CPU mesh")
+
+    from desamba_tpu.engine.device.classifier import DeviceClassifier
+    from desamba_tpu.engine.gold.classify import Options
+    from desamba_tpu.io.sam import format_result
+    from desamba_tpu.parallel.classifier import MeshClassifier
+    from desamba_tpu.parallel.mesh import make_mesh
+
+    fq = tmp_path / "reads.fq"
+    fq.write_text("".join(f"@{n}\n{s}\n+\n{'I' * len(s)}\n"
+                          for n, s in noisy_reads))
+    single = DeviceClassifier(small_my_index, Options(), batch_size=16)
+    exp = [format_result(r, small_my_index.ref_name, single.opts)
+           for r in single.classify_file(str(fq))]
+
+    eng = MeshClassifier(small_my_index, Options(), mesh=make_mesh(4, 2),
+                         batch_size=16)
+    seen = set()
+    for name in ("_k_bloom", "_k_ladder", "_k_chain", "_k_prep",
+                 "_k_rescore"):
+        def spy(*a, _k=getattr(eng, name), **kw):
+            seen.add(threading.get_ident())
+            return _k(*a, **kw)
+
+        setattr(eng, name, spy)
+    got = [format_result(r, small_my_index.ref_name, eng.opts)
+           for r in eng.classify_file(str(fq))]
+    assert seen == {threading.get_ident()}
+    assert got == exp
+    assert len(got) == len(noisy_reads) > 2 * eng.batch_size
